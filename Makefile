@@ -11,7 +11,7 @@ test-clean:
 	python scripts/run_suite.py --clean-cache
 
 native:
-	$(MAKE) -C scl_slam_tpu/native
+	$(MAKE) -C scl_slam/native
 
 bench:
-	timeout 590 python bench.py
+	python bench.py

@@ -8,7 +8,7 @@ rising loop-hit rates, periodic drains (pose-graph solves), and — past
 capacity — live eviction/compaction. Reports per-chunk frames/s so the
 warm-DB trend is visible, plus end-state integrity checks.
 
-    timeout 1500 python scripts/bench_long_session.py [--frames 1536]
+    python scripts/bench_long_session.py [--frames 1536]
 """
 import argparse
 import os
@@ -18,17 +18,14 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/scl_slam_jax_cache_prof")
-
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams, SlamConfig,
 )
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.runtime import Mapper
+from scl_slam.geometry import se3
+from scl_slam.runtime import Mapper
 
 
 def main():
@@ -36,18 +33,16 @@ def main():
     ap.add_argument("--frames", type=int, default=1536)
     ap.add_argument("--transfer", choices=["f32", "int16"], default="f32",
                     help="int16 = 5 mm fixed-point scan staging (halves the\n"
-                    "host->device bytes; the long-session bottleneck on\n"
-                    "link-limited rigs)")
+                    "host->device bytes)")
     ap.add_argument("--max-keyframes", type=int, default=4096,
                     help="a capacity below --frames exercises live eviction "
-                    "too, but costs several extra minutes-long remote "
-                    "compiles (compaction program shapes); eviction "
-                    "correctness is covered by tests/test_eviction.py")
+                    "too, at the cost of compiling the compaction programs; "
+                    "eviction correctness is covered by "
+                    "tests/test_eviction.py")
     args = ap.parse_args()
 
     # deliberately IDENTICAL to bench.py's pipeline config so the big
-    # scanned replay program loads from the persistent compile cache —
-    # a fresh shape costs ~10+ min of remote compiles before chunk 0
+    # scanned replay program loads from the persistent compile cache
     cfg = SlamConfig(
         keyframe=KeyframeConfig(
             max_keyframes=args.max_keyframes,

@@ -24,16 +24,14 @@ Emits ONE JSON line:
 and exits 1 if the checked-in golden bound (tests/golden/quality_ate.json)
 is exceeded — a quality regression fails exactly like a perf one.
 
-Run:  timeout 3500 python scripts/bench_quality.py            # TPU
+Run:  python scripts/bench_quality.py                         # GPU
       python scripts/bench_quality.py --quick --platform cpu  # smoke
 
-COMPILE COST: the pipeline config is the realistic-density one
-(8192 pts/keyframe, 16384-pt submaps — the fitness-as-variance noise
-model needs this density, see tests/test_realistic_proxy.py docstring),
-which is a DIFFERENT program shape from bench.py's: the first TPU run
-pays ~10-25 min of remote compiles; later runs hit the cache. Uses its
-own compile-cache dir (concurrent writers to a shared cache hang, see
-CLAUDE.md).
+The pipeline config is the realistic-density one (8192 pts/keyframe,
+16384-pt submaps — the fitness-as-variance noise model needs this
+density, see tests/test_realistic_proxy.py docstring), a different
+program shape from bench.py's, so its first run compiles its own
+programs.
 """
 import argparse
 import json
@@ -43,10 +41,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import subprocess
+
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/scl_slam_jax_cache_quality")
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -64,7 +61,7 @@ def drift_odometry(gt, seed=3, rot_sigma=0.002, trans_sigma=0.02):
     process; a systematic bias would be model-inconsistent and the MAP
     estimate would rightly refuse to bend the chain — see
     tests/test_realistic_proxy.py)."""
-    from scl_slam_tpu.geometry import se3
+    from scl_slam.geometry import se3
 
     rng = np.random.RandomState(seed)
     odom = [se3.Pose(jnp.asarray(gt[0][:3, :3], jnp.float32),
@@ -80,9 +77,80 @@ def drift_odometry(gt, seed=3, rot_sigma=0.002, trans_sigma=0.02):
     return odom
 
 
+def anchor_config(max_kf, quick=False):
+    """Reference-default thresholds at realistic density (the
+    tests/test_realistic_proxy.py operating point: SC gate 0.14, fitness
+    gate 0.3, 1 m cadence, 8192/16384 storage density)."""
+    from scl_slam.config import (
+        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams,
+        SlamConfig,
+    )
+    from scl_slam.io.lidar_sim import SENSOR_HEIGHT
+
+    return SlamConfig(
+        keyframe=KeyframeConfig(
+            max_keyframes=max_kf,
+            points_per_keyframe=2048 if quick else 8192,
+            raw_points_capacity=65536 if quick else 131072,
+            distance_threshold=1.0,
+            angle_threshold=0.2,
+        ),
+        loop=LoopConfig(
+            near_keyframes=6,
+            submap_capacity=4096 if quick else 16384,
+            history_fitness_score=0.3,
+            icp_iterations=30,
+            icp_max_corr_dist=10.0,
+        ),
+        optimizer=OptimizerConfig(edge_capacity=2048, gn_iters=5, cg_iters=32),
+        scan_context=ScanContextParams(lidar_height=SENSOR_HEIGHT),
+    )
+
+
+def run_session(m, sim, gt, odom, batch, chunk_batches, tag=""):
+    """Replay the session through ``m.replay`` in ``batch`` x
+    ``chunk_batches`` chunks with a drain (pose-graph solve) after every
+    chunk. Returns the number of keyframes that closed a loop."""
+    n = len(gt)
+    chunk = batch * chunk_batches
+    loops = 0
+    pos = 0
+    t0 = time.time()
+    while pos < n:
+        idx = list(range(pos, min(n, pos + chunk)))
+        scans = [sim.scan_at(gt[k], seed=k) for k in idx]
+        out = m.replay(
+            [odom[k] for k in idx], scans,
+            stamps=[1.0 * k for k in idx],
+            apply_gate=False, batch=batch, chunk_batches=chunk_batches,
+        )
+        loops += sum(1 for l in out["loops"] if l)
+        chi = m.optimize()                       # drain every chunk
+        _ = np.asarray(chi)[:1]                  # host copy ends timing
+        pos += len(idx)
+        print(f"{tag} fed {pos}/{n} kf={m._keyframes} loops={loops} "
+              f"resident={int(np.asarray(m.state.counts).sum())} "
+              f"({time.time() - t0:.0f}s)", file=sys.stderr, flush=True)
+    return loops
+
+
+def session_ate(m, gt, odom):
+    """(ATE of the optimized keyframe trajectory, ATE of dead reckoning),
+    both unaligned RMSE in meters against the keyframes' ground truth."""
+    from scl_slam.geometry import se3
+    from scl_slam.io import trajectory as tio
+
+    est, stamps = m.full_trajectory()
+    kf_idx = [int(round(float(s))) for s in stamps]
+    kf_gt = np.stack([gt[i] for i in kf_idx])
+    dead = np.stack([np.asarray(se3.to_matrix(odom[i])) for i in kf_idx])
+    return (tio.ate_rmse(est, kf_gt, align=False),
+            tio.ate_rmse(dead, kf_gt, align=False))
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", choices=["tpu", "cpu"], default="tpu")
+    ap.add_argument("--platform", choices=["gpu", "cpu"], default="gpu")
     ap.add_argument("--quick", action="store_true",
                     help="reduced scale (1 lap, 512-azimuth scans, no "
                     "eviction) — CPU smoke, NOT the anchor")
@@ -93,17 +161,12 @@ def main():
                     "bound instead of gating on it")
     args = ap.parse_args()
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from scl_slam.utils import platform
 
-    from scl_slam_tpu.config import (
-        KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams,
-        SlamConfig,
-    )
-    from scl_slam_tpu.geometry import se3
-    from scl_slam_tpu.io import trajectory as tio
-    from scl_slam_tpu.io.lidar_sim import SENSOR_HEIGHT, LidarSim, UrbanScene
-    from scl_slam_tpu.runtime import Mapper
+    platform.select(args.platform)
+
+    from scl_slam.io.lidar_sim import LidarSim, UrbanScene
+    from scl_slam.runtime import Mapper
 
     t0 = time.time()
     scene = UrbanScene(seed=7, blocks=1, block_size=40.0)
@@ -118,57 +181,13 @@ def main():
     n = len(gt)
     max_kf = min(args.max_keyframes, 256) if args.quick else args.max_keyframes
 
-    # reference-default thresholds at realistic density (the
-    # tests/test_realistic_proxy.py operating point: SC gate 0.14,
-    # fitness gate 0.3, 1 m cadence, 8192/16384 storage density)
-    cfg = SlamConfig(
-        keyframe=KeyframeConfig(
-            max_keyframes=max_kf,
-            points_per_keyframe=2048 if args.quick else 8192,
-            raw_points_capacity=65536 if args.quick else 131072,
-            distance_threshold=1.0,
-            angle_threshold=0.2,
-        ),
-        loop=LoopConfig(
-            near_keyframes=6,
-            submap_capacity=4096 if args.quick else 16384,
-            history_fitness_score=0.3,
-            icp_iterations=30,
-            icp_max_corr_dist=10.0,
-        ),
-        optimizer=OptimizerConfig(edge_capacity=2048, gn_iters=5, cg_iters=32),
-        scan_context=ScanContextParams(lidar_height=SENSOR_HEIGHT),
-    )
-    m = Mapper(cfg)
+    m = Mapper(anchor_config(max_kf, quick=args.quick))
     print(f"[quality] backend={jax.default_backend()} frames={n} "
           f"capacity={max_kf} azimuth={azimuth}", file=sys.stderr, flush=True)
 
     B, R = (8, 2) if args.quick else (32, 6)
-    chunk = B * R
-    loops = 0
-    pos = 0
-    while pos < n:
-        idx = list(range(pos, min(n, pos + chunk)))
-        scans = [sim.scan_at(gt[k], seed=k) for k in idx]
-        out = m.replay(
-            [odom[k] for k in idx], scans,
-            stamps=[1.0 * k for k in idx],
-            apply_gate=False, batch=B, chunk_batches=R,
-        )
-        loops += sum(1 for l in out["loops"] if l)
-        chi = m.optimize()                       # drain every chunk
-        _ = np.asarray(chi)[:1]                  # host copy ends timing
-        pos += len(idx)
-        print(f"[quality] fed {pos}/{n} kf={m._keyframes} loops={loops} "
-              f"resident={int(np.asarray(m.state.counts).sum())} "
-              f"({time.time() - t0:.0f}s)", file=sys.stderr, flush=True)
-
-    est, stamps = m.full_trajectory()
-    kf_idx = [int(round(float(s))) for s in stamps]
-    kf_gt = np.stack([gt[i] for i in kf_idx])
-    dead = np.stack([np.asarray(se3.to_matrix(odom[i])) for i in kf_idx])
-    ate_opt = tio.ate_rmse(est, kf_gt, align=False)
-    ate_dead = tio.ate_rmse(dead, kf_gt, align=False)
+    loops = run_session(m, sim, gt, odom, B, R, tag="[quality]")
+    ate_opt, ate_dead = session_ate(m, gt, odom)
     evicted = sum(len(v) for v in m._evicted.values())
 
     golden_path = os.path.join(
@@ -185,8 +204,15 @@ def main():
         "evicted": evicted,
         "loops": loops,
         "platform": jax.default_backend(),
+        "device_kind": jax.devices()[0].device_kind,
         "wall_s": round(time.time() - t0, 1),
     }
+    if args.platform == "gpu":
+        rec["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True,
+        ).stdout.strip()
     rc = 0
     if args.quick:
         rec["note"] = "quick mode — not the anchor, no golden gate"

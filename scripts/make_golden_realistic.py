@@ -16,10 +16,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from scl_slam_tpu.descriptors import scan_context as sc
-from scl_slam_tpu.io.lidar_sim import LidarSim, UrbanScene
-from scl_slam_tpu.ops import pointcloud as pc
-from scl_slam_tpu.runtime.state import scan_context_config
+from scl_slam.descriptors import scan_context as sc
+from scl_slam.io.lidar_sim import LidarSim, UrbanScene
+from scl_slam.ops import pointcloud as pc
+from scl_slam.runtime.state import scan_context_config
 
 from tests.test_realistic_proxy import RAW_CAP, ref_default_cfg  # noqa: E402
 

@@ -31,7 +31,9 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CACHE = "/tmp/scl_slam_jax_cache"
+CACHE = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+    REPO, ".jax_cache"
+)
 CHUNK_TIMEOUT = 2400  # seconds; the heaviest chunk (realistic-density e2e)
 
 

@@ -16,16 +16,16 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from scl_slam_tpu.parallel import multihost
+from scl_slam.parallel import multihost
 
 multihost.init(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid)
 
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.graph import factors as F
-from scl_slam_tpu.parallel import sharded
+from scl_slam.geometry import se3, so3
+from scl_slam.graph import factors as F
+from scl_slam.parallel import sharded
 
 mesh = multihost.make_mesh(("shard",))
 assert jax.device_count() == 2 * nproc

@@ -29,10 +29,10 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti
-from scl_slam_tpu.runtime import Mapper
-from scl_slam_tpu.runtime.transport import TcpBus
+from scl_slam.geometry import se3
+from scl_slam.io import kitti
+from scl_slam.runtime import Mapper
+from scl_slam.runtime.transport import TcpBus
 
 from test_multi_robot import robot_cfg  # noqa: E402  (same tuned config)
 

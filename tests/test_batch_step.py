@@ -4,9 +4,9 @@ sequential fused step (same state evolution, same detections)."""
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.runtime import mapper as M
-from scl_slam_tpu.runtime.state import make_state
+from scl_slam.geometry import se3
+from scl_slam.runtime import mapper as M
+from scl_slam.runtime.state import make_state
 
 from test_checkpoint import tiny_cfg
 
@@ -52,7 +52,7 @@ def test_batch_equals_sequential_with_loops():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_pipeline import small_cfg, drifting_odometry
-    from scl_slam_tpu.io import kitti
+    from scl_slam.io import kitti
 
     cfg = small_cfg()
     world = kitti.SyntheticWorld(
@@ -119,8 +119,8 @@ def test_public_add_frames_equals_add_frame():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_pipeline import small_cfg, drifting_odometry
-    from scl_slam_tpu.io import kitti
-    from scl_slam_tpu.runtime.mapper import Mapper
+    from scl_slam.io import kitti
+    from scl_slam.runtime.mapper import Mapper
 
     cfg = small_cfg()
     world = kitti.SyntheticWorld(
@@ -174,8 +174,8 @@ def test_public_replay_equals_add_frames():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_pipeline import small_cfg, drifting_odometry
-    from scl_slam_tpu.io import kitti
-    from scl_slam_tpu.runtime.mapper import Mapper
+    from scl_slam.io import kitti
+    from scl_slam.runtime.mapper import Mapper
 
     cfg = small_cfg()
     world = kitti.SyntheticWorld(
@@ -236,8 +236,8 @@ def test_replay_int16_transfer_equals_f32():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_pipeline import small_cfg, drifting_odometry
-    from scl_slam_tpu.io import kitti
-    from scl_slam_tpu.runtime.mapper import Mapper
+    from scl_slam.io import kitti
+    from scl_slam.runtime.mapper import Mapper
 
     cfg = small_cfg()
     world = kitti.SyntheticWorld(

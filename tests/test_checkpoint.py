@@ -2,15 +2,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.runtime import Mapper, checkpoint
+from scl_slam.geometry import se3
+from scl_slam.runtime import Mapper, checkpoint
 
 
 def tiny_cfg():
@@ -89,7 +89,7 @@ class TestCheckpoint:
         re-accepts a frame the gate had rejected."""
         import dataclasses
 
-        from scl_slam_tpu.runtime import FleetMapper
+        from scl_slam.runtime import FleetMapper
 
         cfg = dataclasses.replace(tiny_cfg(), number_of_robots=2)
         fm = FleetMapper(cfg)
@@ -127,7 +127,7 @@ class TestCheckpoint:
         would otherwise reject a re-feed and drop them permanently."""
         import dataclasses
 
-        from scl_slam_tpu.runtime import FleetMapper
+        from scl_slam.runtime import FleetMapper
 
         cfg = dataclasses.replace(tiny_cfg(), number_of_robots=2)
         fm = FleetMapper(cfg)

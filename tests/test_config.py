@@ -2,7 +2,7 @@ import os
 
 import pytest
 
-from scl_slam_tpu.config import DescriptorType, SlamConfig, load_config
+from scl_slam.config import DescriptorType, SlamConfig, load_config
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     DescriptorType,
     KeyframeConfig,
     LidarIrisParams,
@@ -15,9 +15,9 @@ from scl_slam_tpu.config import (
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.descriptors import registry
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.runtime import Mapper
+from scl_slam.descriptors import registry
+from scl_slam.geometry import se3
+from scl_slam.runtime import Mapper
 
 FAMILIES = ["scan_context", "lidar_iris", "m2dp", "grsd", "fpfh", "shot"]
 
@@ -70,8 +70,8 @@ class TestM2DPLoopClosing:
     M2DP 192-D signature, verified by ICP, corrected by the drain."""
 
     def test_m2dp_closes_loops_and_corrects_drift(self):
-        from scl_slam_tpu.config import M2DPParams
-        from scl_slam_tpu.io import kitti, trajectory as tio
+        from scl_slam.config import M2DPParams
+        from scl_slam.io import kitti, trajectory as tio
         from test_pipeline import drifting_odometry
 
         world = kitti.SyntheticWorld(
@@ -125,7 +125,7 @@ class TestMinorFamilyConfigSurface:
     distributedMapping.h:156-204)."""
 
     def test_params_flow_into_families(self):
-        from scl_slam_tpu.config import (
+        from scl_slam.config import (
             FPFHParams, GRSDParams, M2DPParams, SHOTParams, load_config,
         )
 

@@ -2,7 +2,7 @@
 
 The reference's front ends all motion-compensate
 (``launch/single_ugv.launch:33-39`` selects FAST-LIO/LIO-SAM variants,
-each of which deskews before registration); these tests pin the TPU-native
+each of which deskews before registration); these tests pin the JAX
 equivalent: exact constant-twist inversion, gyro-trajectory agreement,
 simulator round-trip, and odometry accuracy recovery on skewed sweeps.
 """
@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.io import lidar_sim
-from scl_slam_tpu.ops import deskew as dsk
-from scl_slam_tpu.runtime.odometry import Odometry, OdometryConfig
+from scl_slam.geometry import se3, so3
+from scl_slam.io import lidar_sim
+from scl_slam.ops import deskew as dsk
+from scl_slam.runtime.odometry import Odometry, OdometryConfig
 
 
 def _random_twist(rng, rot=0.3, trans=1.5):

@@ -1,5 +1,5 @@
 """City-scale map management: eviction + block compaction
-(scl_slam_tpu/runtime/eviction.py).
+(scl_slam/runtime/eviction.py).
 
 The reference grows its keyframe stores without bound; here fixed-capacity
 blocks compact when full. These tests check the three invariants that make
@@ -11,17 +11,17 @@ composition of the evicted increments.
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.runtime import mapper as M
-from scl_slam_tpu.runtime.eviction import compact_robot, plan_keep
-from scl_slam_tpu.runtime.mapper import Mapper
+from scl_slam.geometry import se3
+from scl_slam.runtime import mapper as M
+from scl_slam.runtime.eviction import compact_robot, plan_keep
+from scl_slam.runtime.mapper import Mapper
 
 
 def small_cfg(**kw):
@@ -193,7 +193,7 @@ class TestCompaction:
         assert not keep.all(), "middle non-anchor frames must be decimated"
 
     def test_checkpoint_roundtrip_with_archive(self, tmp_path):
-        from scl_slam_tpu.runtime import checkpoint
+        from scl_slam.runtime import checkpoint
 
         cfg = small_cfg()
         m = Mapper(cfg)

@@ -12,16 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti, trajectory as tio
-from scl_slam_tpu.runtime import FleetMapper
+from scl_slam.geometry import se3
+from scl_slam.io import kitti, trajectory as tio
+from scl_slam.runtime import FleetMapper
 
 
 def fleet_cfg(n_robots=2, max_keyframes=64):

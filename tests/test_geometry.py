@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.geometry import se3, so3
+from scl_slam.geometry import se3, so3
 
 
 def random_rotations(key, n):

@@ -36,9 +36,9 @@ import jax
 import numpy as np
 import pytest
 
-from scl_slam_tpu.descriptors import geometric as geo
-from scl_slam_tpu.io.lidar_sim import LidarSim, UrbanScene
-from scl_slam_tpu.ops import pointcloud as pc
+from scl_slam.descriptors import geometric as geo
+from scl_slam.io.lidar_sim import LidarSim, UrbanScene
+from scl_slam.ops import pointcloud as pc
 
 RAW_CAP = 65536   # keyframe.raw_points_capacity default: production density
 CFG = geo.GRSDConfig()

@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.io import kitti
-from scl_slam_tpu.runtime import imu
-from scl_slam_tpu.runtime.odometry import Odometry, OdometryConfig
+from scl_slam.geometry import se3, so3
+from scl_slam.io import kitti
+from scl_slam.runtime import imu
+from scl_slam.runtime.odometry import Odometry, OdometryConfig
 
 
 def pose_mat(R, t):

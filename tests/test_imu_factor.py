@@ -7,8 +7,8 @@ estimation (bias/velocity observability), not discretization error.
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.graph import imu_factor as IF
+from scl_slam.geometry import se3
+from scl_slam.graph import imu_factor as IF
 
 G = np.array([0.0, 0.0, -9.81])
 
@@ -25,7 +25,7 @@ def simulate(n_states=6, m=20, h=0.01, seed=0, bg=None, ba=None):
     accel = np.zeros((n_states - 1, m, 3), np.float32)
     gyro = np.zeros((n_states - 1, m, 3), np.float32)
     dts = np.full((n_states - 1, m), h, np.float32)
-    from scl_slam_tpu.geometry import so3 as so3m
+    from scl_slam.geometry import so3 as so3m
 
     for i in range(n_states - 1):
         w = rng.uniform(-0.4, 0.4, 3)

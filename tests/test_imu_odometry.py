@@ -9,10 +9,10 @@ exact and tests check estimation, not synthesizer artifacts.
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti
-from scl_slam_tpu.runtime import imu as imu_mod
-from scl_slam_tpu.runtime.odometry import ImuFusedOdometry, OdometryConfig
+from scl_slam.geometry import se3
+from scl_slam.io import kitti
+from scl_slam.runtime import imu as imu_mod
+from scl_slam.runtime.odometry import ImuFusedOdometry, OdometryConfig
 
 from test_imu_factor import simulate
 
@@ -105,7 +105,7 @@ class TestImuFusedOdometry:
         recovers an injected gyro bias from exact relative poses."""
         gt = kitti.loop_trajectory(n_frames=80, radius=25.0, revisit=False)[:10]
         bias = np.array([0.02, -0.01, 0.015], np.float32)
-        from scl_slam_tpu.graph import imu_factor as IF
+        from scl_slam.graph import imu_factor as IF
 
         sm = IF.ImuSmoother(
             window=10, max_samples=32,

@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-from scl_slam_tpu.io import kitti as kio
+from scl_slam.io import kitti as kio
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +63,7 @@ def test_sequence_reader_roundtrip(mini_kitti):
 
 
 def test_cli_end_to_end(mini_kitti, tmp_path, capsys):
-    from scl_slam_tpu import run as cli
+    from scl_slam import run as cli
 
     root, gt = mini_kitti
     out = str(tmp_path / "kitti_run")
@@ -83,8 +83,8 @@ def test_cli_end_to_end(mini_kitti, tmp_path, capsys):
 
 def test_cli_native_loader(mini_kitti, tmp_path, capsys):
     """--loader native: the threaded C++ prefetcher drives the same run."""
-    from scl_slam_tpu.io import native_loader
-    from scl_slam_tpu import run as cli
+    from scl_slam.io import native_loader
+    from scl_slam import run as cli
 
     if native_loader.load_library() is None:
         pytest.skip("native library not built")

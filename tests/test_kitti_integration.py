@@ -19,7 +19,7 @@ pytestmark = pytest.mark.skipif(
 
 class TestKitti:
     def test_sequence_reader(self):
-        from scl_slam_tpu.io import kitti
+        from scl_slam.io import kitti
 
         seq = kitti.KittiSequence(KITTI_ROOT, "00")
         assert len(seq) > 1000
@@ -29,7 +29,7 @@ class TestKitti:
         assert T is None or T.shape == (4, 4)
 
     def test_short_run_ate(self):
-        from scl_slam_tpu import run as cli
+        from scl_slam import run as cli
 
         rc = cli.main(
             [

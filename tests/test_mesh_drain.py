@@ -14,16 +14,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.runtime import Mapper
-from scl_slam_tpu.runtime.mapper import _queue_loop, encode_kf
+from scl_slam.geometry import se3, so3
+from scl_slam.runtime import Mapper
+from scl_slam.runtime.mapper import _queue_loop, encode_kf
 
 from test_graph import circle_trajectory
 

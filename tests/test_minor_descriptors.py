@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.descriptors import geometric as geo
-from scl_slam_tpu.descriptors import m2dp
-from scl_slam_tpu.ops import pointcloud as pc
+from scl_slam.descriptors import geometric as geo
+from scl_slam.descriptors import m2dp
+from scl_slam.ops import pointcloud as pc
 
 from test_scan_context import ring_cloud, rotate_cloud
 

@@ -12,17 +12,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti, trajectory as tio
-from scl_slam_tpu.runtime import Mapper
-from scl_slam_tpu.runtime.transport import LocalBus
+from scl_slam.geometry import se3
+from scl_slam.io import kitti, trajectory as tio
+from scl_slam.runtime import Mapper
+from scl_slam.runtime.transport import LocalBus
 
 
 def robot_cfg(rid):
@@ -223,7 +223,7 @@ class TestTwoRobots:
         retry-per-spin semantics). The pure-idle case — no candidates,
         nothing new — must not re-dispatch (dispatch-floor waste at
         serving cadence)."""
-        import scl_slam_tpu.runtime.mapper as mp
+        import scl_slam.runtime.mapper as mp
 
         bus = LocalBus()
         mappers = [Mapper(robot_cfg(0)), Mapper(robot_cfg(1))]

@@ -3,7 +3,7 @@
 Spawns 2 python processes, each with 2 virtual CPU devices; the
 factor-sharded GN solve runs over the 4-device global mesh. This is the
 mechanical analog of an N-host pod (SURVEY §7.9) — same code path, Gloo
-instead of ICI.
+instead of NCCL.
 """
 import os
 import subprocess

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from scl_slam_tpu.io import native_loader
+from scl_slam.io import native_loader
 
 
 @pytest.fixture(scope="module")
@@ -54,8 +54,8 @@ class TestNativeScDescriptors:
         may only disagree within ~2e-7 rad of a sector boundary)."""
         import jax
         import jax.numpy as jnp
-        from scl_slam_tpu.descriptors import scan_context as sc
-        from scl_slam_tpu.ops.pointcloud import Cloud
+        from scl_slam.descriptors import scan_context as sc
+        from scl_slam.ops.pointcloud import Cloud
 
         cfg = sc.ScanContextConfig()
         rng = np.random.RandomState(3)
@@ -84,7 +84,7 @@ class TestNativeScDescriptors:
         )
 
     def test_all_masked_and_out_of_range(self):
-        from scl_slam_tpu.descriptors import scan_context as sc
+        from scl_slam.descriptors import scan_context as sc
 
         cfg = sc.ScanContextConfig()
         xyz = np.full((1, 64, 3), 500.0, np.float32)  # all beyond max_radius
@@ -105,8 +105,8 @@ class TestNativeScDescriptors:
         import sys, os
         sys.path.insert(0, os.path.dirname(__file__))
         from test_pipeline import small_cfg, drifting_odometry
-        from scl_slam_tpu.io import kitti
-        from scl_slam_tpu.runtime.mapper import Mapper
+        from scl_slam.io import kitti
+        from scl_slam.runtime.mapper import Mapper
 
         cfg = small_cfg()
         world = kitti.SyntheticWorld(

@@ -1,8 +1,8 @@
 import numpy as np
 
-from scl_slam_tpu.io import export as eio
-from scl_slam_tpu.utils import timing
-from scl_slam_tpu.utils.logging import get_logger
+from scl_slam.io import export as eio
+from scl_slam.utils import timing
+from scl_slam.utils.logging import get_logger
 
 
 class TestTimers:

@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti
-from scl_slam_tpu.ops import pointcloud as pc, registration as reg
-from scl_slam_tpu.runtime.odometry import Odometry, OdometryConfig
+from scl_slam.geometry import se3
+from scl_slam.io import kitti
+from scl_slam.ops import pointcloud as pc, registration as reg
+from scl_slam.runtime.odometry import Odometry, OdometryConfig
 
 
 class TestPointToPlane:

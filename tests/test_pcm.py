@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.graph import pcm
+from scl_slam.geometry import se3, so3
+from scl_slam.graph import pcm
 
 
 def make_loops(n_good=6, n_bad=3, key=None):

@@ -6,16 +6,16 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.runtime import mapper as M
-from scl_slam_tpu.runtime.state import make_state
+from scl_slam.geometry import se3, so3
+from scl_slam.runtime import mapper as M
+from scl_slam.runtime.state import make_state
 
 
 def build_state(cfg, n=12):

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.ops import pointcloud as pc
+from scl_slam.geometry import se3, so3
+from scl_slam.ops import pointcloud as pc
 
 
 def make_cloud(key, n_valid, capacity, scale=10.0):

@@ -6,9 +6,9 @@ state loss, SURVEY §5)."""
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti
-from scl_slam_tpu.runtime import Mapper, checkpoint
+from scl_slam.geometry import se3
+from scl_slam.io import kitti
+from scl_slam.runtime import Mapper, checkpoint
 
 from test_checkpoint import tiny_cfg
 

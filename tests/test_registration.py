@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.ops import pointcloud as pc
-from scl_slam_tpu.ops import registration as reg
+from scl_slam.geometry import se3, so3
+from scl_slam.ops import pointcloud as pc
+from scl_slam.ops import registration as reg
 
 
 def random_cloud(key, n, capacity, scale=10.0):

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     DescriptorType,
     KeyframeConfig,
     LidarIrisParams,
@@ -33,14 +33,14 @@ from scl_slam_tpu.config import (
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.descriptors import lidar_iris as li
-from scl_slam_tpu.descriptors import scan_context as sc
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import trajectory as tio
-from scl_slam_tpu.io.lidar_sim import SENSOR_HEIGHT, LidarSim, UrbanScene
-from scl_slam_tpu.ops import pointcloud as pc
-from scl_slam_tpu.runtime import Mapper
-from scl_slam_tpu.runtime.state import scan_context_config
+from scl_slam.descriptors import lidar_iris as li
+from scl_slam.descriptors import scan_context as sc
+from scl_slam.geometry import se3
+from scl_slam.io import trajectory as tio
+from scl_slam.io.lidar_sim import SENSOR_HEIGHT, LidarSim, UrbanScene
+from scl_slam.ops import pointcloud as pc
+from scl_slam.runtime import Mapper
+from scl_slam.runtime.state import scan_context_config
 
 RAW_CAP = 131072
 

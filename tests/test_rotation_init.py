@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.graph import factors as F
-from scl_slam_tpu.graph import rotation_init, solver
+from scl_slam.geometry import se3, so3
+from scl_slam.graph import factors as F
+from scl_slam.graph import rotation_init, solver
 
 from test_graph import TIGHT_PRIOR, circle_trajectory, pad_poses
 

@@ -16,7 +16,7 @@ import pytest
 
 @pytest.mark.timeout(600)
 def test_tcp_two_process_end_to_end(tmp_path, capsys):
-    from scl_slam_tpu import run_multi
+    from scl_slam import run_multi
 
     out = str(tmp_path / "tcp_run")
     rc = run_multi.main([
@@ -46,7 +46,7 @@ def test_tcp_permanent_failure_aborts_fast(tmp_path, capsys):
     their own respawn budgets (code-review r5)."""
     import time
 
-    from scl_slam_tpu import run_multi
+    from scl_slam import run_multi
 
     out = str(tmp_path / "tcp_abort")
     t0 = time.monotonic()
@@ -70,7 +70,7 @@ def test_tcp_respawn_resumes_crashed_worker(tmp_path, capsys):
     injection); the supervisor respawns it with --resume from its
     periodic checkpoint; the joint run still completes with a correct
     joint map (same assertions as the crash-free run)."""
-    from scl_slam_tpu import run_multi
+    from scl_slam import run_multi
 
     out = str(tmp_path / "tcp_respawn")
     rc = run_multi.main([

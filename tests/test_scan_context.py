@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.descriptors import base, scan_context as sc
-from scl_slam_tpu.ops import pointcloud as pc
+from scl_slam.descriptors import base, scan_context as sc
+from scl_slam.ops import pointcloud as pc
 
 CFG = sc.ScanContextConfig(exclude_recent=5)  # small exclusion for tests
 

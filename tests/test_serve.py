@@ -5,7 +5,7 @@ import time
 import numpy as np
 import pytest
 
-from scl_slam_tpu.serve import SlamClient, SlamServer
+from scl_slam.serve import SlamClient, SlamServer
 
 from test_checkpoint import tiny_cfg
 

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
-from scl_slam_tpu.geometry import se3, so3
-from scl_slam_tpu.graph import factors as F
-from scl_slam_tpu.graph import solver
-from scl_slam_tpu.parallel import sharded
+from scl_slam.geometry import se3, so3
+from scl_slam.graph import factors as F
+from scl_slam.graph import solver
+from scl_slam.parallel import sharded
 
 from test_graph import (
     TIGHT_PRIOR,

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from scl_slam_tpu.descriptors import base, scan_context as sc
+from scl_slam.descriptors import base, scan_context as sc
 
 CFG = sc.ScanContextConfig(exclude_recent=5, num_candidates=8)
 
@@ -83,7 +83,7 @@ class TestShardedMapper:
     DB partitioned across the mesh must be bit-identical to single-device."""
 
     def _cfg(self):
-        from scl_slam_tpu.config import (
+        from scl_slam.config import (
             KeyframeConfig, LoopConfig, OptimizerConfig, ScanContextParams,
             SlamConfig,
         )
@@ -101,8 +101,8 @@ class TestShardedMapper:
         )
 
     def test_pipeline_matches_unsharded(self, mesh):
-        from scl_slam_tpu.geometry import se3
-        from scl_slam_tpu.runtime import Mapper
+        from scl_slam.geometry import se3
+        from scl_slam.runtime import Mapper
 
         cfg = self._cfg()
         plain, sharded = Mapper(cfg), Mapper(cfg)

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.descriptors import shot
+from scl_slam.descriptors import shot
 
 from test_scan_context import ring_cloud, rotate_cloud
 

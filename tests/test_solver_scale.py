@@ -21,10 +21,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.graph import factors as F
-from scl_slam_tpu.graph import solver
-from scl_slam_tpu.graph.chain_solver import chain_solve
+from scl_slam.geometry import se3
+from scl_slam.graph import factors as F
+from scl_slam.graph import solver
+from scl_slam.graph.chain_solver import chain_solve
 
 from test_graph import (
     circle_trajectory,

@@ -12,11 +12,11 @@ import threading
 import jax.numpy as jnp
 import numpy as np
 
-from scl_slam_tpu.config import KeyframeConfig, LoopConfig, SlamConfig
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti as kio
-from scl_slam_tpu.runtime import Mapper
-from scl_slam_tpu.runtime.transport import VerifyRequest
+from scl_slam.config import KeyframeConfig, LoopConfig, SlamConfig
+from scl_slam.geometry import se3
+from scl_slam.io import kitti as kio
+from scl_slam.runtime import Mapper
+from scl_slam.runtime.transport import VerifyRequest
 
 
 def _cfg(robot):
@@ -153,7 +153,7 @@ def test_concurrent_serve_verification_no_lost_updates():
     # this test under the widened window). The fixed code only calls
     # _queue_loop under the state lock, so the sleep is harmless there.
     import time as _time
-    from scl_slam_tpu.runtime import mapper as mapper_mod
+    from scl_slam.runtime import mapper as mapper_mod
 
     orig_queue_loop = mapper_mod._queue_loop
 

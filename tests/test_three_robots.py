@@ -5,17 +5,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scl_slam_tpu.config import (
+from scl_slam.config import (
     KeyframeConfig,
     LoopConfig,
     OptimizerConfig,
     ScanContextParams,
     SlamConfig,
 )
-from scl_slam_tpu.geometry import se3
-from scl_slam_tpu.io import kitti, trajectory as tio
-from scl_slam_tpu.runtime import Mapper
-from scl_slam_tpu.runtime.transport import LocalBus
+from scl_slam.geometry import se3
+from scl_slam.io import kitti, trajectory as tio
+from scl_slam.runtime import Mapper
+from scl_slam.runtime.transport import LocalBus
 
 
 def cfg_for(rid):

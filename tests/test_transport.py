@@ -7,7 +7,7 @@ import time
 import numpy as np
 import pytest
 
-from scl_slam_tpu.runtime.transport import (
+from scl_slam.runtime.transport import (
     DescriptorMsg,
     LocalBus,
     TcpBus,

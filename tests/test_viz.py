@@ -7,7 +7,7 @@ per run instead (headless deployment).
 import numpy as np
 import pytest
 
-from scl_slam_tpu.io import viz
+from scl_slam.io import viz
 
 
 def _ring(n=40, r=10.0):
